@@ -1,4 +1,4 @@
-"""bluest_tpu: TPU-native multilevel best linear unbiased estimation.
+"""bluest_tpu: multilevel best linear unbiased estimation in JAX.
 
 A ground-up JAX/XLA rebuild of the capabilities of croci/bluest: MLBLUE,
 MLMC and MFMC estimators with on-device sample-allocation optimization

@@ -1,7 +1,7 @@
 // Native host kernels for bluest_tpu.
 //
 // The reference ships a pybind11 extension for its group-structure scatter
-// kernels (cmisc.cpp); on TPU those became XLA einsums (core/psi.py).  What
+// kernels (cmisc.cpp); here those became XLA einsums (core/psi.py).  What
 // remains genuinely host-side in this framework is the combinatorial
 // runtime around the allocation problem, and that is what lives here:
 //

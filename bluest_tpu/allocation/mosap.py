@@ -204,7 +204,7 @@ class MOSAP:
     def get_cleanup_matrices(self, m, delta: float = 0.0) -> np.ndarray:
         # dispatch every output's kernel first, then ONE gather: the
         # cleanup walk calls this per iteration, and per-output blocking
-        # fetches serialize link round trips on remote-dispatch backends
+        # fetches serialize device round trips
         # (same pattern as the corner search / _pipelined_sumse)
         import jax
         import jax.numpy as jnp
@@ -557,7 +557,7 @@ class MOSAP:
             stationarity is O(1) RELATIVE did not come from a converged
             convex solve -- it is a stalled cone program's iterate whose
             self-consistent feasibility rescale hides a garbage cost.
-            Observed once on the NS K=7 golden under remote-pool stress:
+            Observed once on the NS K=7 golden under host stress:
             the direct form's isolation worker crashed, the epigraph
             cross-check (the form the direct one exists to dodge on
             degenerate sets) returned 'inaccurate', and its rescaled

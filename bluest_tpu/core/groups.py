@@ -6,7 +6,7 @@ covariance buffers consumed by C scatter loops (sap.py:66-95, cmisc.cpp).
 Here each size class k holds a padded ``(Lk, k)`` index array, a
 ``(Lk, k, k)`` stack of inverse covariance blocks, and a dense one-hot
 selector ``(Lk, k, M)`` so that every downstream kernel is an einsum /
-matmul (MXU) rather than a gather-scatter loop.
+matmul rather than a gather-scatter loop.
 """
 
 from __future__ import annotations

@@ -4,7 +4,7 @@ A fresh JAX implementation of the Birgin/Martinez/Raydan SPG method used by
 the reference for masked SPD covariance projection (spg.py:39-132):
 Barzilai-Borwein step, Grippo-style nonmonotone line search with quadratic
 interpolation backtracking.  The whole solve is one ``lax.while_loop`` so it
-jits and runs on TPU without host round trips; the nonmonotone history is a
+jits and runs on the device without host round trips; the nonmonotone history is a
 fixed-size ring buffer.
 """
 

@@ -11,7 +11,7 @@ Outputs (5, as in the reference): mean membrane potential, final V,
 max V, a smooth spike-count proxy, and mean potassium activation.
 
 Time stepping is a ``lax.scan``; under vmap the state update becomes a
-(batch, 4)-wide VPU computation per step -- the standard ODE-on-TPU shape.
+(batch, 4)-wide elementwise computation per step.
 """
 
 from __future__ import annotations

@@ -8,7 +8,7 @@ the model hierarchy is the SPDE sampler of a Matern field,
 
 discretized with the Dirichlet sine basis on an n_l x n_l grid.  In that
 basis the operator is diagonal, so a sample is one spectral scaling plus
-two sine-synthesis matmuls -- exactly the shape the MXU wants:
+two sine-synthesis matmuls:
 
     z = S_x ( W_hat * g(lambda) ) S_y^T,   g = (kappa^2 + lambda)^-alpha
 
@@ -57,7 +57,7 @@ def sample_matern2d_sharded(w_hat, n: int, n_shards: int,
                             kappa: float = 8.0, alpha: float = 1.0):
     """Model-parallel field synthesis: this shard synthesizes its block of
     x-modes and the full field is assembled with a psum over the 'model'
-    mesh axis -- the TPU-native form of the reference's internally-MPI-
+    mesh axis -- the JAX form of the reference's internally-MPI-
     parallel user models (blue_models.py:121-130, restrictions_matern.py:
     19-37).  Requires n divisible by n_shards."""
     dt = w_hat.dtype

@@ -28,8 +28,8 @@ def _coord_barrier(tag: str, timeout_s: Optional[float] = None) -> None:
     XLA:CPU's Gloo backend exchanges communicator addresses through the
     coordination KV store with a HARD-CODED ~30s deadline, so the first
     collective over a new device set dies whenever the processes reach it
-    more than 30s apart -- and cold-compile skew on a churned pool runs to
-    minutes.  The coordination-service barrier has a configurable timeout
+    more than 30s apart -- and cold-compile skew between processes can
+    run to minutes.  The coordination-service barrier has a configurable timeout
     (BLUEST_TPU_DIST_BARRIER_S, default 1200s), so barriering here first
     absorbs the skew and the Gloo rendezvous that follows sees aligned
     peers.  SPMD discipline: every process must reach these barriers in
@@ -86,7 +86,7 @@ def sample_mesh(n_devices: Optional[int] = None) -> jax.sharding.Mesh:
 
 
 def sample_model_mesh(n_sample: int, n_model: int) -> jax.sharding.Mesh:
-    """2D (samples, model) mesh: the TPU-native equivalent of nested MPI
+    """2D (samples, model) mesh: the JAX equivalent of nested MPI
     communicators -- each model instance spans ``n_model`` devices, with
     ``n_sample`` such instances running independent samples."""
     devs = jax.devices()
@@ -98,7 +98,7 @@ def sample_model_mesh(n_sample: int, n_model: int) -> jax.sharding.Mesh:
 
 def initialize_distributed(**kwargs) -> None:
     """Multi-host initialization hook (jax.distributed) -- replaces
-    `mpiexec` process management for multi-slice jobs.
+    `mpiexec` process management for multi-host jobs.
 
     After init (the one moment every process is provably in lockstep)
     this warms the full-device Gloo clique, so first-dispatch collectives
@@ -116,7 +116,7 @@ def fetch_global(x) -> np.ndarray:
     Under ``jax.distributed`` a sample-sharded engine output lives partly
     on other processes' devices and a direct fetch raises.  Gather it
     through a replicating collective instead, so every process receives
-    the full logical array -- the TPU-native analog of the reference's
+    the full logical array -- the JAX analog of the reference's
     rank-0 snapshot gather (blue_fn.py:189-199).  COLLECTIVE: in a
     multi-process run every process must call this on the same array.
     Single-process (or already fully-addressable) arrays take the plain
@@ -125,7 +125,7 @@ def fetch_global(x) -> np.ndarray:
         from jax.experimental import multihost_utils
         # align first: the allgather itself traces/compiles per process,
         # and if its Gloo clique is new the rendezvous deadline is 30s --
-        # far below the compile skew a churned pool produces.
+        # far below the compile skew processes can accumulate.
         # is_fully_addressable is a global property of the array, so
         # every process takes this branch for the same inputs.
         _coord_barrier("fetch_global")
@@ -136,15 +136,17 @@ def fetch_global(x) -> np.ndarray:
 
 
 def dcn_sample_model_mesh(n_model: Optional[int] = None) -> jax.sharding.Mesh:
-    """Multi-slice 2D mesh laid out for the interconnect hierarchy.
+    """Multi-host 2D mesh laid out for the interconnect hierarchy.
 
-    The sample axis varies ACROSS processes (slices) and the model axis
+    The sample axis varies ACROSS processes (hosts) and the model axis
     stays WITHIN one process's local devices.  Monte Carlo sampling only
     communicates on the sample axis once, in the final psum of the small
-    sum arrays -- cheap even over DCN -- while an internally-distributed
-    model (the reference's nested-MPI pattern, blue_models.py:121-130)
-    does per-sample collectives on the model axis, which this layout
-    keeps on intra-slice ICI.  This is BASELINE config 5's mesh: call
+    sum arrays -- cheap even over the network between hosts (DCN) --
+    while an internally-distributed model (the reference's nested-MPI
+    pattern, blue_models.py:121-130) does per-sample collectives on the
+    model axis, which this layout keeps among one host's devices (on an
+    H100 host, NVLink peers all to all).  This is BASELINE config 5's
+    mesh: call
     ``initialize_distributed`` on every process, then build this mesh
     and pass it as ``params["mesh"]``.
 
@@ -161,7 +163,7 @@ def dcn_sample_model_mesh(n_model: Optional[int] = None) -> jax.sharding.Mesh:
     if n_model < 1 or local % n_model:
         raise ValueError(
             "n_model=%d must divide the local device count %d so a model "
-            "instance never straddles the DCN boundary" % (n_model, local))
+            "instance never straddles a host boundary" % (n_model, local))
     # order globally by (process, per-process position) so each mesh row
     # (model axis) is one process's contiguous devices
     devs = sorted(jax.devices(), key=lambda d: (d.process_index, d.id))

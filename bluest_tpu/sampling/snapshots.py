@@ -172,7 +172,7 @@ class SnapshotSpool:
 
     Reference parity note: the reference streams snapshots inline per
     batch (blue_fn.py:133-145) with O(run) memory in its npz append;
-    this is the TPU engine's memory-bounded analog.
+    this is the device engine's memory-bounded analog.
     """
 
     def __init__(self, No: int, L: int,

@@ -97,7 +97,7 @@ Anderson acceleration (type-II, safeguarded -- what SCS 3.x ships):
 a rolling history of ``aa_memory`` iterate/residual pairs of the DR
 fixed-point variable z = u - v.  Each iteration solves the tiny
 (mem x mem) constrained least-squares  min ||G gamma||, sum gamma = 1
-(regularized eigh-pinv -- never LU, per the TPU f64 rule) and proposes
+(regularized eigh-pinv -- never LU, see solvers/sdp.py) and proposes
 the extrapolation  z_aa = sum_i gamma_i (z_i + g_i).  The proposal is
 SAFEGUARDED: accepted only if its own fixed-point residual does not
 exceed the current one; otherwise the iteration falls back to two
@@ -363,7 +363,7 @@ def _admm_run(cols, coefs, Ar, D, bh, ch, drow, ecol, scb, bnorm_o, cnorm_o,
             valid = jnp.arange(aa_mem) < hist
             # min ||G gamma||, sum gamma = 1  ->  gamma prop (GG')^-1 1
             # on the valid slots, via a regularized eigh pseudo-inverse
-            # (mem x mem; LU is unavailable in f64 on TPU).
+            # (mem x mem; no LU, see solvers/sdp.py).
             lam = 1e-12 * jnp.maximum(
                 jnp.max(jnp.where(valid, jnp.diag(Gram), 0.0)), 1e-30)
             Gm = jnp.where(valid[:, None] & valid[None, :], Gram, 0.0)

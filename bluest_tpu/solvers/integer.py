@@ -27,9 +27,8 @@ import numpy as np
 _PINV_RCOND = 1.0e-10
 _CHUNK = 8192
 # Dispatch all corner-variance chunks asynchronously and fetch them in ONE
-# jax.device_get (the solve-loop _pipelined_sumse pattern): on a
-# remote-dispatch backend a blocking per-chunk fetch pays a full link
-# round trip each (~20 ms x chunks x outputs on the bench instance).
+# jax.device_get (the solve-loop _pipelined_sumse pattern): a blocking
+# per-chunk fetch pays a full device round trip each (chunks x outputs).
 # BLUEST_TPU_CORNER_PIPELINE=0 restores the synchronous per-chunk fetch
 # (the A/B knob used to validate the win; see CLAUDE.md).
 _PIPELINE = os.environ.get("BLUEST_TPU_CORNER_PIPELINE", "1") != "0"

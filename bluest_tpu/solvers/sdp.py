@@ -38,7 +38,9 @@ Design notes:
       dtau = (rt + (c+q)@v2) / ((c+q)@v1 + h'(W^TW)^{-1}h + kappa/tau)
       dx = v2 - dtau * v1
   The denominator is c'H^{-1}c + Schur(h) + kappa/tau > 0.
-* TPU f64 has no LU kernel; every solve is Cholesky or eigh based.
+* Every solve is Cholesky or eigh based (no LU; a rule from the previous
+  accelerator, whose f64 had no LU kernel -- not yet revisited for the
+  H100, ROADMAP C7).
 * **The entire solve is ONE jitted program**: initialization, the
   predictor-corrector iteration, and the stall / best-iterate /
   convergence bookkeeping all live inside a single ``lax.while_loop``,
@@ -199,8 +201,8 @@ def _wood_factor(d0, W, jitter=1e-14):
     Wd = W / d0[:, None]
     # mixed-precision experiment (VERDICT r4 item 5): the capacitance
     # GEMM and the apply-path matvecs are the per-iteration flops; with
-    # BLUEST_TPU_IPM_GEMM_DTYPE=f32 they run in f32 (on TPU: real MXU
-    # passes instead of emulated f64) while the Cholesky, the refinement
+    # BLUEST_TPU_IPM_GEMM_DTYPE=f32 they run in f32 while the Cholesky,
+    # the refinement
     # matvec and every residual stay f64 -- classic mixed-precision
     # iterative refinement, the existing _WOOD_REFINE loop is the
     # accuracy anchor.  The GEMM uses the SYMMETRIC split V = D^{-1/2} W
@@ -237,8 +239,7 @@ def _gemm_cast(x):
 # on the K=7 HH golden (L=3301, r 531 -> 640, tools/ab_profile.py, 3 ABBA
 # blocks): a LOSS -- per-iteration B/A median 1.43 ([0.87, 1.78, 1.43]),
 # identical cost, zero fallbacks.  The capacitance GEMM is not
-# shape-alignment-bound on this host backend; keep 0 here and re-try only
-# on real MXU hardware where the lane story differs.
+# shape-alignment-bound on this host backend; keep 0 here.
 _WOOD_PAD = int(os.environ.get("BLUEST_TPU_WOOD_PAD", "0"))
 # Gondzio centrality correctors per iteration (LP + tau/kappa blocks).
 # Default OFF: measured on the K=7 HH golden (L=3301), one corrector cuts

@@ -19,7 +19,7 @@ Two design points keep SPG honest on this objective:
   delta0 fixed from the starting point's PHI scale: it blows up like
   1/delta0 as m -> 0 (removing the attractor) and perturbs the optimum
   only at relative O(delta0 / ||PHI||) ~ 1e-10.  Solved with Cholesky
-  (TPU f64 has no LU kernel).
+  (no LU, see solvers/sdp.py).
 * Projection onto {m >= 0, w.m <= B} is exact: clip, then if over
   budget a 64-step bisection on the KKT shift theta with
   m(theta) = max(x - theta w, 0).

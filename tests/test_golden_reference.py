@@ -331,8 +331,8 @@ def test_navier_stokes_paper_costs_reproduce_published_numbers():
 
 @pytest.mark.skipif(not os.environ.get("BLUEST_TPU_RUN_XXL"),
                     reason="XXL one-time compile (K=7 x 6 outputs, "
-                           "L=3301): ~30 min cold through a churned "
-                           "remote pool; set BLUEST_TPU_RUN_XXL=1")
+                           "L=3301), tens of minutes cold; set "
+                           "BLUEST_TPU_RUN_XXL=1")
 def test_navier_stokes_paper_costs_mlblue_k7():
     """MLBLUE half of the published NS figures: the CONTINUOUS K=7
     optimum at the paper's cost override matches 2,553,327.3 to ~0.01%

@@ -1,7 +1,7 @@
 """Multi-process (multi-host surrogate) smoke test.
 
 The reference scales across nodes with `mpiexec -n P` (blue_fn.py:106-110,
-179-187); the TPU-native equivalent is `jax.distributed.initialize` + a
+179-187); the JAX equivalent is `jax.distributed.initialize` + a
 global mesh whose devices span processes, with the same psum doing the
 allreduce.  This test launches TWO local processes, each owning 4 virtual
 CPU devices, builds the 8-device global mesh through
@@ -34,7 +34,7 @@ port = sys.argv[3]; out = sys.argv[4]
 from bluest_tpu.parallel import initialize_distributed
 initialize_distributed(coordinator_address="127.0.0.1:" + port,
                        num_processes=nproc, process_id=pid,
-                       # pool churn makes every cached program cold and
+                       # a cold compile cache makes every program cold and
                        # per-process compile walls diverge by minutes; the
                        # default 300s shutdown barrier then kills the
                        # slower (healthy) worker when the faster one exits
@@ -126,8 +126,8 @@ def _run_workers(wfile, nproc, port, out, timeout=420, retries=1):
     subsequent failure or timeout is a genuine bug (AssertionError).
 
     Failures BEFORE full init get one retry on a fresh port (the
-    coordinator port can race with a recycled socket, and this host's
-    remote pool wedges transiently); if the retry also fails pre-init
+    coordinator port can race with a recycled socket); if the retry
+    also fails pre-init
     the test reports a LOUD ``xfail(env: ...)`` -- distinct from both
     "passed" and a silent skip in the suite summary, so a permanently
     wedged coordinator cannot green-wash the multi-host tier
@@ -189,7 +189,7 @@ from bluest_tpu.parallel import (initialize_distributed,
                                  SAMPLE_AXIS, MODEL_AXIS)
 initialize_distributed(coordinator_address="127.0.0.1:" + port,
                        num_processes=nproc, process_id=pid,
-                       # pool churn makes every cached program cold and
+                       # a cold compile cache makes every program cold and
                        # per-process compile walls diverge by minutes; the
                        # default 300s shutdown barrier then kills the
                        # slower (healthy) worker when the faster one exits
@@ -211,8 +211,8 @@ def body():
     s = jax.lax.axis_index(SAMPLE_AXIS)
     m = jax.lax.axis_index(MODEL_AXIS)
     part = (1.0 + s) * 10.0 ** m                  # unique per device
-    inst = jax.lax.psum(part, MODEL_AXIS)         # intra-slice (ICI)
-    return jax.lax.psum(inst, SAMPLE_AXIS)        # cross-slice (DCN)
+    inst = jax.lax.psum(part, MODEL_AXIS)         # within one host
+    return jax.lax.psum(inst, SAMPLE_AXIS)        # across hosts
 
 f = jax.jit(jax.shard_map(lambda: body(), mesh=mesh, in_specs=(),
                           out_specs=P(), check_vma=False))
@@ -270,7 +270,7 @@ port = sys.argv[3]; out = sys.argv[4]
 from bluest_tpu.parallel import initialize_distributed, sample_mesh
 initialize_distributed(coordinator_address="127.0.0.1:" + port,
                        num_processes=nproc, process_id=pid,
-                       # pool churn makes every cached program cold and
+                       # a cold compile cache makes every program cold and
                        # per-process compile walls diverge by minutes; the
                        # default 300s shutdown barrier then kills the
                        # slower (healthy) worker when the faster one exits
@@ -388,7 +388,7 @@ from bluest_tpu.parallel import (initialize_distributed,
                                  dcn_sample_model_mesh)
 initialize_distributed(coordinator_address="127.0.0.1:" + port,
                        num_processes=nproc, process_id=pid,
-                       # pool churn makes every cached program cold and
+                       # a cold compile cache makes every program cold and
                        # per-process compile walls diverge by minutes; the
                        # default 300s shutdown barrier then kills the
                        # slower (healthy) worker when the faster one exits
@@ -398,8 +398,8 @@ print("BLUEST_MH_INIT_OK", flush=True)
 __CLS__
 
 # BASELINE config 5 end-to-end: each model instance spans 2 intra-process
-# devices (psum over the model axis stays on "ICI"), the sample axis
-# crosses the process boundary ("DCN")
+# devices (psum over the model axis stays within one process), the
+# sample axis crosses the process boundary
 mesh = dcn_sample_model_mesh(n_model=2)
 for row in mesh.devices:
     assert len({d.process_index for d in row}) == 1, mesh.devices
